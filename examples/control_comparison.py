@@ -18,6 +18,9 @@ def main():
 
     import jax.numpy as jnp
     import qgd_tpu
+    from qgd_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     prob = qgd_tpu.construct_rabi_prob(tf=2 * np.pi, nsteps=args.base_nsteps)
     tf = float(prob.tf)

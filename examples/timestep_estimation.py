@@ -16,6 +16,9 @@ def main():
     args = p.parse_args()
 
     import qgd_tpu
+    from qgd_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     prob = qgd_tpu.models.cnot2_problem(tf=args.tf, nsteps=10)
     amps = [args.max_amp] * prob.N_operators

@@ -1,12 +1,12 @@
-"""qgd_tpu — TPU-native quantum optimal control (gate design) framework.
+"""qgd_tpu — accelerator-native quantum optimal control (gate design).
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``leespen1/QuantumGateDesign.jl``: arbitrary-even-order implicit Hermite
 (two-point Taylor / Hermite-Obreshkov) integration of the time-dependent
 Schrödinger equation, exact discrete-adjoint gradients of a gate-infidelity +
 guard-penalty + ridge objective, and bound-constrained quasi-Newton
 optimization of control-pulse parameters — batched, jitted, and sharded over
-TPU device meshes.
+device meshes.
 
 Design notes (vs the reference, cited throughout as ``file:line`` of the
 reference repo):
@@ -16,8 +16,8 @@ reference repo):
   (src/forward_evolution.jl:33-70). Here the implicit Hermite stage is a dense
   2N x 2N LHS materialized by running the same Taylor recursion on the
   identity, and ONE LU solve handles *all* initial-condition columns (and any
-  batched parameter scenarios) at once — an MXU-shaped formulation with static
-  shapes and no host round-trips.
+  batched parameter scenarios) at once — batched dense linear algebra with
+  static shapes and no host round-trips.
 * Control pulses are pure functions of ``(t, pcof)``; their time-derivative
   tables are evaluated vectorized over the whole timestep grid up front, so
   the hot ``lax.scan`` consumes precomputed (nsteps, m, N_ops) tensors.
@@ -41,14 +41,12 @@ import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to single-pass bf16 MXU arithmetic (~8-bit mantissa).
-# That is catastrophic for implicit timestepping: the Newton-Schulz stage
-# solve acquires a biased O(1e-3) per-step error and the propagation goes
-# exponentially unstable over >~1e4 steps (measured: CNOT3 f32 at
-# nsteps=30720 reaches guard penalty ~1e18 at "default" precision, while
-# "highest" matches the CPU-f32 result to 2e-6 at ~2.5x the step cost —
-# still far above the perf target). f64 and CPU paths are unaffected by
-# this flag. Override with QGD_MATMUL_PRECISION=default|high|highest.
+# On the GPU an f32 matmul at "default" precision runs in TF32, which keeps
+# about 3 decimal digits (10-bit mantissa). That breaks long-horizon
+# implicit stepping: every stage solve carries a biased ~1e-3 relative
+# error, and over >~1e4 steps the propagation drifts and goes unstable.
+# "highest" asks for true FP32. f64 matmuls are unaffected by this flag.
+# Override with QGD_MATMUL_PRECISION=default|high|highest.
 _jax.config.update("jax_default_matmul_precision",
                    _os.environ.get("QGD_MATMUL_PRECISION", "highest"))
 

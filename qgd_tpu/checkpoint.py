@@ -183,8 +183,7 @@ def load_setup(filename: str) -> dict:
 
 def verify_history_f64(filename: str, which: str = "best") -> dict:
     """f64 final-verification pass over a recorded optimization (the
-    production discipline of CLAUDE.md rule 7: f32 propagation optimizes,
-    f64 verifies). Rebuilds the setup from ``<filename>.setup.*``, forces
+    production discipline: f32 propagation optimizes, f64 verifies). Rebuilds the setup from ``<filename>.setup.*``, forces
     ``dtype="float64"`` / the f64 solve path, re-evaluates the recorded
     ``best`` (min objective) or ``last`` pcof, and writes the comparison
     to ``<filename>.f64check.json``.

@@ -7,8 +7,8 @@ The reference contract (src/Controls/Control.jl:6-27): a control has
 The parameter vector ``pcof`` packs each control's parameters contiguously,
 concatenated across controls (src/Controls/Control.jl:67-75).
 
-TPU-native design
------------------
+Design
+------
 A control here is a pure pytree whose ``p(t, pcof)``/``q(t, pcof)`` are
 jax-traceable scalar functions. What the propagator actually consumes is the
 *scaled derivative table* ``p^{(k)}(t)/k!`` for ``k = 0..m-1`` — the

@@ -12,7 +12,7 @@ At any ``t`` exactly three basis functions are non-zero (segments of splines
 their closed-form values/derivatives are the three quadratic segments
 (reference ``bspline2``, lines 140-204). Derivatives of order > 2 are zero.
 
-TPU-native: the 3-tap gather + closed form is evaluated vectorized over the
+Vectorized: the 3-tap gather + closed form is evaluated vectorized over the
 whole timestep grid; gradients w.r.t. pcof flow through the gather by AD
 (the scatter transpose XLA generates is exactly the reference's
 3-nonzero-entry ``gradbspline2!``).

@@ -3,7 +3,7 @@
 and ``FortranBSplineControl``, src/Controls/FortranBSpline.jl, which ccalls
 de Boor's pppack ``bsplvd`` Fortran routine, src/Fortran/bsplvd.f).
 
-TPU-native design: the Cox-de Boor *value* recurrence is implemented as a
+Design: the Cox-de Boor *value* recurrence is implemented as a
 pure jnp function with static loop bounds (order <= ~10); time-derivative
 tables come from Taylor-mode AD of that recurrence — exact, because the
 spline is polynomial within each knot interval and the interval index is

@@ -15,7 +15,7 @@ scaling factor equals the *normalized Taylor datum* ``dt^i p^{(i)}(t_n)/i!``:
 * ``Derivative`` — factor ``dt^i/i!`` (pcof stores raw derivatives)
 * ``Heuristic``  — factor ``(i+1)! 2^i`` (reference default)
 
-TPU-native formulation: instead of the reference's stateful
+Formulation: instead of the reference's stateful
 interval-caching + polynomial-recentering scheme (its cache is documented as
 thread-unsafe, hermite_control.jl:190-193), the interpolation map is a small
 constant matrix ``Hmat (2m+2, 2m+2)`` precomputed at construction:

@@ -6,7 +6,7 @@ Our stage solvers are fixed-iteration (static shapes; no host sync in the
 hot loop), so the meaningful health metric is the *achieved relative
 residual* of the implicit stage solve ``LHS(t_{n+1}) w_{n+1} = rhs``:
 
-* ``"lu"`` — f64 roundoff (or f32-LU + refinement roundoff on TPU),
+* ``"lu"`` — LU roundoff in the working dtype,
 * ``"schulz"`` — the Newton–Schulz inverse contraction + refinement,
 * ``"gmres"`` — fixed-budget Arnoldi truncation error; checked here
   against ``prob.gmres_abstol``/``gmres_reltol`` (which the fixed-iteration
@@ -98,7 +98,7 @@ def stage_residuals(prob, controls, pcof, order: int = 4, sample: int = 8):
     Returns ``{"max": float, "mean": float, "solver": str, "n_sampled": int}``.
     For ``solver="gmres"`` a warning is emitted if the achieved residual
     exceeds ``max(gmres_abstol, gmres_reltol)`` — the requested tolerances
-    are otherwise advisory for the fixed-iteration TPU-native solver.
+    are otherwise advisory for the fixed-iteration solver.
     """
     res = np.asarray(_stage_residuals_jit(
         prob, controls, jnp.asarray(pcof, dtype=jnp.float64), order, sample))

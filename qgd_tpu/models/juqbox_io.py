@@ -2,7 +2,7 @@
 src/ProblemConstructors/juqbox_converter.jl:1-91).
 
 The reference converts in-memory between its ``SchrodingerProb`` and
-Juqbox.jl's ``objparams``. Juqbox is a Julia package, so the TPU-native
+Juqbox.jl's ``objparams``. Juqbox is a Julia package, so the Python
 equivalent works through a serialized dict/JSON/npz representation of
 ``objparams``'s fields (the same field names the reference reads:
 ``Hconst``, ``Hsym_ops``, ``Hanti_ops``, ``Uinit``, ``T``, ``nsteps``,

@@ -22,13 +22,17 @@ _lib = None
 
 
 def build_library(force: bool = False) -> str:
-    """Compile bsplvd.cc -> libqgd_bspline.so (g++ -O3 -shared -fPIC)."""
+    """Compile bsplvd.cc -> libqgd_bspline.so (g++ -O3 -shared -fPIC).
+    The library is written under a per-process name and renamed into place,
+    so concurrent first uses never load a half-written file."""
     if force or (not os.path.exists(_LIB)
                  or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
-             "-o", _LIB],
+             "-o", tmp],
             check=True, capture_output=True)
+        os.replace(tmp, _LIB)
     return _LIB
 
 

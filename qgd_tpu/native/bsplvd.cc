@@ -1,5 +1,5 @@
 // Native C++ implementation of de Boor's B-spline basis evaluation with
-// derivatives — the TPU-native replacement for the reference's Fortran
+// derivatives — the native replacement for the reference's Fortran
 // pppack routines (src/Fortran/bsplvb.f, src/Fortran/bsplvd.f), used as an
 // independent parity oracle for the JAX de Boor recurrence
 // (qgd_tpu/controls/deboor.py) and as a host-side fast path for control

@@ -1,6 +1,5 @@
 """Core numerical operators: Hermite-Obreshkov timestep assembly and the
-Taylor-derivative recursion, formulated as dense batched linear algebra for
-the TPU MXU."""
+Taylor-derivative recursion, formulated as dense batched linear algebra."""
 
 from .hermite import (
     hermite_coefficient,

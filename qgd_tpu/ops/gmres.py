@@ -3,8 +3,8 @@ alternative to the dense-LU stage solve.
 
 The reference's production path is restarted GMRES with a reusable Arnoldi
 workspace per initial condition (src/forward_evolution.jl:142-220,487-505)
-and data-dependent iteration counts. On TPU, data-dependent trip counts
-force host round-trips, so this implementation uses a *fixed* iteration
+and data-dependent iteration counts. On an accelerator, data-dependent
+trip counts force host round-trips, so this implementation uses a *fixed* iteration
 budget (restart-free Arnoldi of static size), batched over the
 initial-condition axis, wrapped in ``lax.custom_linear_solve`` so
 reverse-mode AD solves the transposed system with the same machinery.

@@ -11,15 +11,15 @@ generated by the Leibniz recursion (src/hermite.jl:10-101)::
 
     w^{(j+1)}/(j+1)!  =  1/(j+1) * sum_{i=0}^{j}  [A^{(j-i)}/(j-i)!]  [w^{(i)}/i!]
 
-TPU-native formulation
-----------------------
+Accelerator formulation
+-----------------------
 Everything here is a handful of dense matmuls with static shapes:
 
 * The scaled generator derivatives ``A~_k = A^{(k)}(t)/k!`` are assembled as a
   stacked ``(m, 2N, 2N)`` tensor from the drift and an einsum of control
   derivative tables against the stacked control operators.
 * Applied to a *batch* of states ``W (2N, B)`` the recursion is
-  ``m(m+1)/2`` MXU matmuls.
+  ``m(m+1)/2`` matmuls.
 * Applied to the identity it materializes the dense one-step LHS/RHS
   matrices, so the implicit stage is a single batched LU solve — no GMRES,
   no data-dependent iteration counts, no per-initial-condition loop

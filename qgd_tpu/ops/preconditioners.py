@@ -11,9 +11,9 @@ src/forward_evolution.jl:772-802 ``form_LHS_no_control``).
 from __future__ import annotations
 
 import jax.numpy as jnp
+import jax.scipy.linalg as jsp_linalg
 
 from .hermite import assemble_generator_stack, scaled_derivatives, build_lhs
-from .linalg import refined_lu_solve
 
 
 def no_control_lhs(prob, dt, order: int) -> jnp.ndarray:
@@ -36,15 +36,15 @@ def identity_preconditioner(prob, dt, order: int):
 
 
 def lu_preconditioner(prob, dt, order: int):
-    """Exact inverse of the no-control LHS via (mixed-precision) LU
+    """Exact inverse of the no-control LHS via one LU factorization
     (reference ``LUPreconditioner``, src/preconditioners.jl:44-55)."""
-    M = no_control_lhs(prob, dt, order)
+    lu_piv = jsp_linalg.lu_factor(no_control_lhs(prob, dt, order))
 
     def apply(v):
-        return refined_lu_solve(M, v)
+        return jsp_linalg.lu_solve(lu_piv, v)
 
     def apply_T(v):
-        return refined_lu_solve(M.T, v)
+        return jsp_linalg.lu_solve(lu_piv, v, trans=1)
 
     return apply, apply_T
 

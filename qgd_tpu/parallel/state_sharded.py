@@ -1,6 +1,6 @@
 """State-sharded (tensor-parallel) propagation for large systems.
 
-For systems too large for one chip's HBM/VMEM (many coupled qudits: N grows
+For systems too large for one device's memory (many coupled qudits: N grows
 as the product of subsystem sizes), the level dimension itself is sharded
 over a ``tp`` mesh axis:
 
@@ -13,7 +13,7 @@ over a ``tp`` mesh axis:
 * the implicit stage is matrix-free GMRES whose inner products ``psum``
   over ``tp`` (a dense LU is not available across shards) — this is where
   the reference's GMRES formulation (src/forward_evolution.jl:142-220)
-  earns its keep in the TPU design: it is the natural *distributed* solver,
+  earns its keep here: it is the natural *distributed* solver,
   while the single-chip path uses the dense direct solve.
 
 The (scenario, ic) axes of qgd_tpu/parallel/sharded.py compose with this:

@@ -1,10 +1,12 @@
 """Test configuration: run everything on CPU with 8 virtual devices so the
-multi-chip sharding paths are exercised without TPU hardware, and with
-float64 enabled (matching the reference's gradient-exactness tolerances)."""
+multi-device sharding paths are exercised without accelerator hardware, and
+with float64 enabled (matching the reference's gradient-exactness
+tolerances). ``JAX_PLATFORMS=cuda,cpu python -m pytest tests -m gpu`` runs
+the tests that need the card on a GPU machine."""
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -13,7 +15,7 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 import pytest  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
 
 

@@ -91,7 +91,7 @@ def test_resume_after_restart(tmp_path):
 
 
 def test_verify_history_f64(tmp_path):
-    """The f64 final-verification pass (CLAUDE.md rule 7 discipline): an
+    """The f64 final-verification pass (optimize in f32, verify in f64): an
     f32-propagated optimization record re-evaluated in f64 must agree to
     the f32 noise scale, and the record lands next to the checkpoint."""
     import dataclasses

@@ -183,7 +183,7 @@ def test_carrier_negative_and_zero_frequencies():
     """Negative and zero carrier frequencies (the CNOT3 sidebands are
     [0, -chi, -chi']) — both the p/q tables and the pcof gradient. Guards
     the real-arithmetic Cauchy product's integer frequency powers, which
-    must not lower to pow(negative, float) (NaN on TPU)."""
+    must not lower to pow(negative, float) (NaN on some backends)."""
     from qgd_tpu.controls.base import taylor_coefficients
 
     base = SinCosControl(TF, frequency=0.7)

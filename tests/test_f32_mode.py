@@ -1,4 +1,4 @@
-"""f32 propagation mode (TPU production speed path): forward and gradients
+"""f32 propagation mode (the fast optimization path): forward and gradients
 must track the f64 reference to single-precision accuracy, and optimization
 must still converge to optimization-grade infidelities."""
 

@@ -105,8 +105,8 @@ def test_resume_from_checkpoint(tmp_path):
 
 def test_multistart_batched_lbfgs():
     """Vmapped on-device L-BFGS multi-start (the reference's SLURM-array
-    scale-out as one jitted program), on the schulz solver the TPU path
-    uses."""
+    scale-out as one jitted program), on the schulz solver the batched
+    f32 production configuration uses."""
     import dataclasses
 
     prob = dataclasses.replace(construct_rabi_prob(nsteps=20),

@@ -53,7 +53,7 @@ def test_prefix_gradient_matches_segmented_f64(cnot3_setup, order):
 
 
 def test_prefix_gradient_f32_schulz(cnot3_setup):
-    """f32 + Schulz effective inverses (the TPU production configuration,
+    """f32 + Schulz effective inverses (the f32 production configuration,
     traced on CPU): agreement at the documented f32-drift scale."""
     prob, ctrls, pcof, tgt = cnot3_setup
     (o_ref, g_ref) = segmented_objective_and_gradient(

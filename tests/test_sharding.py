@@ -74,8 +74,7 @@ def test_batched_scenarios_match_loop():
 @pytest.mark.parametrize("method", ["lagrange", "segmented", "ad"])
 def test_sharded_gradient_routes_agree(method):
     """The production sharded gradient is the hand-structured Lagrange (or
-    segmented) adjoint under shard_map — no reverse-AD-of-scan, the route
-    the real TPU compiler cannot build (VERDICT r2 weak #2). All routes
+    segmented) adjoint under shard_map — no reverse-AD-of-scan. All routes
     must agree with the single-device adjoint to roundoff; "ad" stays as
     the independent CPU cross-check."""
     prob, control, pcof, target = _problem()

@@ -120,9 +120,14 @@ def test_populations_conserved():
     np.testing.assert_allclose(totals, 1.0, atol=1e-10)
 
 
-def test_cli_example_runs(capsys):
+def test_cli_example_runs(capsys, monkeypatch, tmp_path):
+    import os
     import sys
-    sys.path.insert(0, "/root/repo/examples")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    # the CLI configures the persistent compile cache; keep it out of the
+    # repo for this in-process run
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     import cnot3_optimize_gate as cli
     rc = cli.main(["4", "50.0", "-m", "1", "--tf", "100.0", "--d1", "4"])
     assert rc == 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Round-5 structured multistart campaign at flagship horizon (VERDICT r4
 item 4: >= 8 structured CNOT3 starts at flagship nsteps, >= 2 reaching
-<= 1.3e-2 guarded objective on-chip, iteration walls recorded).
+<= 1.3e-2 guarded objective, iteration walls recorded).
 
 Structured start family (results/MULTISTART.md finding 2: the optimum's
 basin is a ~1e-5-class neighborhood under UNCORRELATED noise, so scale-out

@@ -42,7 +42,7 @@ controls = tuple(
     for f in qgd_tpu.models.cnot3_carrier_frequencies())
 
 d = np.load(os.path.join(os.path.dirname(__file__), "..", "..",
-                         "results", "cnot3_order4_tpu.npz"))
+                         "results", "cnot3_order4_f32.npz"))
 pcof = jnp.asarray(d["pcof"][-1])
 
 pairs = []

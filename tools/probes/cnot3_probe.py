@@ -7,8 +7,8 @@ plateau is a *phase* problem: per-column overlaps with the target are
 plateau is 3.3 (nowhere near stationary — the run was killed by its own
 5400 s cap, not by convergence). These probes characterize the landscape at
 a cheap-but-faithful operating point (order 4, nsteps=1024 reproduces the
-flagship objective to 2e-6) so the TPU budget is spent on a configuration
-known to converge.
+flagship objective to 2e-6) so the device budget is spent on a
+configuration known to converge.
 
 Usage: python tools/probes/cnot3_probe.py NAME [--d1 N] [--bound B]
            [--max-iter N] [--nsteps N] [--order N] [--start plateau|seedK]
@@ -80,7 +80,7 @@ def main():
 
     if args.start == "plateau":
         d = np.load(os.path.join(os.path.dirname(__file__), "..", "..",
-                                 "results", "cnot3_order4_tpu.npz"))
+                                 "results", "cnot3_order4_f32.npz"))
         pcof0 = d["pcof"][-1]
         assert pcof0.size == n, (pcof0.size, n)
     elif args.start.startswith("file="):

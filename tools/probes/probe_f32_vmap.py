@@ -1,7 +1,6 @@
-"""Probe: f32-mode scenario-vmapped CNOT3 objective+gradient on TPU.
+"""Probe: f32-mode scenario-vmapped CNOT3 objective+gradient.
 
-Tiny shapes first (CLAUDE.md rule 4): nsteps=8, scenarios=2. Prints timing
-JSON on success.
+Tiny shapes first: nsteps=8, scenarios=2. Prints timing JSON on success.
 """
 import dataclasses, json, sys, time
 

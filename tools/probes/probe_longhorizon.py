@@ -1,19 +1,16 @@
 #!/usr/bin/env python
 """Long-horizon gradient probes (VERDICT r2 item 5).
 
-(a) Bracket the f64 segmented-gradient device fault between nsteps=1e4
-    (known good) and 1e5 (known "UNAVAILABLE: TPU device error", measured
-    round 2 BEFORE the matmul-precision pin — retest included).
+(a) Time the f64 segmented gradient between nsteps=1e4 and 1e5.
 (b) Demonstrate a >=5e5-step CNOT3 gradient (the reference's dt=1e-4
     order-2 operating point class, examples/cnot3_optimize_gate.sb:30-33)
-    in f32 on chip / f64 on CPU.
+    in f32 on the device / f64 on CPU.
 
-One shape per invocation (CLAUDE.md rule 4: probe one program at a time).
+One shape per invocation.
 
 (c) ``--chunk-steps N``: route through the host-chunked driver
-    (qgd_tpu/chunked.py) so every device execution covers at most N steps
-    — the mitigation for the ~300 s per-execution watchdog (CLAUDE.md
-    rule 8) that makes (a)'s faulting sizes and (b) runnable on-device.
+    (qgd_tpu/chunked.py) so every device execution covers at most N steps,
+    which bounds device memory.
 
 Usage: python tools/probes/probe_longhorizon.py NSTEPS [--f64] [--order N]
            [--chunk-steps N]
